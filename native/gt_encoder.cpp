@@ -10,7 +10,7 @@
  *
  * The Python host path measures ~75 MB/s logical (encode-bound); this
  * loop is the -c counterpart of the native extract loop
- * (xsi_extract.cpp).  The device (TPU) path is unaffected.
+ * (xsi_extract.cpp).  The device (GPU) path is unaffected.
  */
 #include <cstdint>
 #include <cstring>

@@ -15,7 +15,9 @@
 #include "bgzf_reader.h"
 
 #include <zlib.h>
+#ifdef XSI_HAVE_ZSTD
 #include <zstd.h>
+#endif
 
 #include <cstdio>
 #include <cstring>
@@ -932,10 +934,9 @@ struct xsi_file {
         return nullptr;
       }
       zstd_buf.resize(osize);
-      size_t rc = ZSTD_decompress(zstd_buf.data(), osize,
-                                  data.data() + off + 16, csize);
-      if (ZSTD_isError(rc) || rc != osize) {
-        set_error("zstd decompress failed");
+      if (xsi_zstd_decompress(data.data() + off + 16, csize,
+                              zstd_buf.data(), osize) != int64_t(osize)) {
+        if (xsi_have_zstd()) set_error("zstd decompress failed");
         return nullptr;
       }
       bp = zstd_buf.data();
@@ -1182,5 +1183,54 @@ int64_t xsi_scan_records(xsi_file_t *f, int32_t *bm_out, int32_t *na_out,
 }
 
 const char *xsi_last_error(void) { return g_error.c_str(); }
+
+int xsi_have_zstd(void) {
+#ifdef XSI_HAVE_ZSTD
+  return 1;
+#else
+  return 0;
+#endif
+}
+
+size_t xsi_zstd_bound(size_t n) {
+#ifdef XSI_HAVE_ZSTD
+  return ZSTD_compressBound(n);
+#else
+  return n;
+#endif
+}
+
+int64_t xsi_zstd_compress(const void *src, size_t n, void *dst, size_t cap,
+                          int level) {
+#ifdef XSI_HAVE_ZSTD
+  size_t rc = ZSTD_compress(dst, cap, src, n, level);
+  if (ZSTD_isError(rc)) {
+    set_error(std::string("zstd compress failed: ") + ZSTD_getErrorName(rc));
+    return -1;
+  }
+  return int64_t(rc);
+#else
+  (void)src; (void)n; (void)dst; (void)cap; (void)level;
+  set_error("native library built without zstd (zstd.h not found)");
+  return -1;
+#endif
+}
+
+int64_t xsi_zstd_decompress(const void *src, size_t n, void *dst,
+                            size_t cap) {
+#ifdef XSI_HAVE_ZSTD
+  size_t rc = ZSTD_decompress(dst, cap, src, n);
+  if (ZSTD_isError(rc)) {
+    set_error(std::string("zstd decompress failed: ") +
+              ZSTD_getErrorName(rc));
+    return -1;
+  }
+  return int64_t(rc);
+#else
+  (void)src; (void)n; (void)dst; (void)cap;
+  set_error("native library built without zstd (zstd.h not found)");
+  return -1;
+#endif
+}
 
 }  // extern "C"

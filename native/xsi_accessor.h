@@ -83,6 +83,17 @@ int64_t xsi_scan_records(xsi_file_t *f, int32_t *bm_out, int32_t *na_out,
 
 const char *xsi_last_error(void);
 
+/* zstd frame codec behind the container's --zstd block layer.  The
+ * compress/decompress calls return the output size, or -1 with
+ * xsi_last_error() set (always -1 when the library was built without
+ * zstd: xsi_have_zstd() == 0). */
+int xsi_have_zstd(void);
+size_t xsi_zstd_bound(size_t n);
+int64_t xsi_zstd_compress(const void *src, size_t n, void *dst, size_t cap,
+                          int level);
+int64_t xsi_zstd_decompress(const void *src, size_t n, void *dst,
+                            size_t cap);
+
 #ifdef __cplusplus
 }
 #endif

@@ -142,6 +142,24 @@ def random_vcf(path, n_samples=127, n_records=300, seed=0, maf_mix=True,
     return write_vcf(path, rows, n_samples=n_samples, chrom=chrom)
 
 
+def vcf_to_bcf(vcf_path: str, bcf_path: str) -> str:
+    """Re-encode a VCF fixture as BCF (the package's own BCF writer)."""
+    from xsqueezeit_tpu.io.bcf import BcfWriter, patch_shared_sample_counts
+    from xsqueezeit_tpu.io.sites import encode_gt_indiv
+    from xsqueezeit_tpu.io.unified import GtInput
+
+    inp = GtInput(vcf_path)
+    w = BcfWriter(bcf_path, inp.header)
+    n = len(inp.samples)
+    for rec in inp:
+        shared = patch_shared_sample_counts(rec.shared, 1, n)
+        w.write_raw(shared, encode_gt_indiv(inp.header, rec.gt,
+                                            rec.ploidy, n))
+    w.close()
+    inp.close()
+    return bcf_path
+
+
 ALL_MICRO = {
     "micro_basic": micro_basic,
     "micro_missing": micro_missing,

@@ -54,8 +54,8 @@ def test_distributed_zstd_roundtrip(tmp_path):
 
 
 def test_dot_prod_device_matches_host(tmp_path):
-    """Device (MXU) compressive dot product == host compressed-walk path.
-    Runs on the CPU jax backend in tests; same code drives the TPU."""
+    """Device compressive dot product == host compressed-walk path.
+    Runs on the CPU jax backend in tests; same code drives the GPU."""
     from xsqueezeit_tpu.bench.tools import dot_prod, dot_prod_device
     vcf = fixtures.random_vcf(str(tmp_path / "in.vcf"), n_samples=23,
                               n_records=70, seed=15)

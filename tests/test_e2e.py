@@ -8,9 +8,6 @@ from xsqueezeit_tpu.cli import main as cli_main
 from xsqueezeit_tpu.io.unified import GtInput
 from tests import fixtures
 
-REF_BCF = "/root/reference/test/test_files/test_region_target.bcf"
-
-
 def read_all(path):
     """Parse a VCF/BCF into a list of (fixed_cols_site_key, gt_list, ploidy)."""
     inp = GtInput(path)
@@ -73,12 +70,17 @@ def test_random_roundtrip_zstd_multiblock(tmp_path):
 
 
 def test_bcf_input_roundtrip(tmp_path):
-    """Real htslib-produced BCF input -> xsi -> bcf preserves genotypes."""
+    """BCF input (multiallelic, rare and common sites) -> xsi -> bcf
+    preserves genotypes."""
+    vcf = fixtures.random_vcf(str(tmp_path / "in.vcf"), n_samples=57,
+                              n_records=260, seed=12, p_multi=0.15)
+    bcf = fixtures.vcf_to_bcf(vcf, str(tmp_path / "in.bcf"))
     xsi = str(tmp_path / "ref.xsi")
     out = str(tmp_path / "ref_out.bcf")
-    assert cli_main(["-c", "-f", REF_BCF, "-o", xsi]) == 0
+    assert cli_main(["-c", "-f", bcf, "-o", xsi,
+                     "--variant-block-length", "100"]) == 0
     assert cli_main(["-x", "-f", xsi, "-o", out, "-O", "b"]) == 0
-    orig, s_in = read_all(REF_BCF)
+    orig, s_in = read_all(bcf)
     got, s_out = read_all(out)
     assert s_in == s_out
     assert orig == got

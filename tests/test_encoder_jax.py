@@ -116,7 +116,7 @@ def test_sparse_cap_sort_fallback_matches_scan_path():
 
 
 def test_sparse_idx_packed_reduction_matches_search():
-    """The gather-free packed masked reduction (the TPU production
+    """The gather-free packed masked reduction (the production
     extraction for H <= 65535) is element-identical to the binary search
     across cap dtypes (i8/i16 cumsum), odd caps, empty rows, and
     positions above 32767 in both 16-bit fields."""
@@ -204,9 +204,9 @@ def test_csr_sparse_assembly_matches_padded():
 
 def test_hrc_width_wah_bucket_quarters():
     """H > 16384 coarsens the WAH-row axis to quarter buckets of L_pad:
-    each (Lw, H) chain executable costs ~35 min of one-time Mosaic
-    compile at HRC width, so the fine bucket ladder is capped at 4
-    variants per block size (encoder_base.prepare)."""
+    each (Lw, H) shape is one more cold compile of the block program at
+    HRC width, so the fine bucket ladder is capped at 4 variants per
+    block size (encoder_base.prepare)."""
     H = 20000  # > 16384 trigger
     n_samples = H // 2
     rng = np.random.default_rng(0)

@@ -235,3 +235,89 @@ def test_rank_chain_packed_pairs_matches_sequential():
                                       err_msg=f"H={H} tb={tb}")
         np.testing.assert_array_equal(np.asarray(r_starts), np.array(starts),
                                       err_msg=f"H={H} tb={tb}")
+
+
+# ---------------------------------------------------------------------------
+# The production PBWT chunk chains and WAH expansion (plain XLA) against the
+# NumPy oracles, across widths around the 128-lane and 4096 boundaries.
+# ---------------------------------------------------------------------------
+def _pbwt_oracle(x, sorts):
+    """Arrangement-ordered bits per line and the final arrangement."""
+    L, H = x.shape
+    a = np.arange(H)
+    ys = np.zeros((L, H), np.uint8)
+    for line in range(L):
+        y = x[line][a]
+        ys[line] = y
+        if sorts[line]:
+            a = pbwt_np.pbwt_sort_bool(a, y)
+    return ys, a
+
+
+def _chain_case(H, seed):
+    rng = np.random.default_rng(seed)
+    L = 45                                  # not a multiple of the chunk
+    x = random_block_bits(rng, L, H)
+    sorts = rng.random(L) < 0.7             # mixed sorting / non-sorting
+    return x, sorts
+
+
+@pytest.mark.parametrize("H", [1, 7, 128, 129, 1000, 4099])
+def test_pbwt_encode_chunked_matches_oracle(H):
+    from xsqueezeit_tpu.ops import pbwt_jax
+
+    x, sorts = _chain_case(H, H)
+    want_y, want_a = _pbwt_oracle(x, sorts)
+    got_y, got_a = pbwt_jax.pbwt_encode_chunked(
+        jnp.asarray(x.astype(np.int8)), jnp.ones(x.shape[0], jnp.int32),
+        jnp.asarray(sorts))
+    np.testing.assert_array_equal(np.asarray(got_y), want_y)
+    np.testing.assert_array_equal(np.asarray(got_a), want_a)
+
+
+@pytest.mark.parametrize("H", [1, 7, 128, 129, 1000, 4099])
+def test_pbwt_decode_chunked_matches_oracle(H):
+    from xsqueezeit_tpu.ops import pbwt_jax
+
+    x, sorts = _chain_case(H, 100 + H)
+    ys, want_a = _pbwt_oracle(x, sorts)
+    vals, a_fin = pbwt_jax.pbwt_decode_chunked(jnp.asarray(ys),
+                                               jnp.asarray(sorts))
+    np.testing.assert_array_equal(np.asarray(vals), x)
+    np.testing.assert_array_equal(np.asarray(a_fin), want_a)
+
+
+def _wah_stream(lines):
+    return np.concatenate([wah_np.wah_encode(b) for b in lines])
+
+
+@pytest.mark.parametrize("case", ["tall_narrow", "wide", "padded_tail",
+                                  "saturated"])
+def test_wah_expand_stream_matches_oracle(case):
+    """Many short lines, w > 1024 groups per line, zero padding past the
+    last line (extra rows decode to zeros), and fill counters at the
+    16383-group limit."""
+    rng = np.random.default_rng(7)
+    if case == "tall_narrow":
+        lines, extra, pad = random_block_bits(rng, 300, 31), 0, 0
+    elif case == "wide":
+        lines, extra, pad = random_block_bits(rng, 5, 20000), 0, 0
+    elif case == "padded_tail":
+        lines, extra, pad = random_block_bits(rng, 20, 1001), 3, 9
+    else:
+        n = (16383 + 40) * 15
+        lines = np.zeros((3, n), np.uint8)
+        lines[1] = 1
+        lines[2, n // 2:] = 1
+        extra, pad = 0, 0
+    n_lines, H = lines.shape[0] + extra, lines.shape[1]
+    w = wah_jax.n_words_for(H)
+    stream = np.concatenate([_wah_stream(lines), np.zeros(pad, np.uint16)])
+    got = np.asarray(wah_jax.wah_expand_stream(jnp.asarray(stream),
+                                               n_lines, w))
+    want = wah_np.wah_expand_block(stream, n_lines, w)
+    np.testing.assert_array_equal(got, want)
+    bits = wah_np.unpack_words(got[:lines.shape[0]].astype(np.uint16),
+                               w * 15)[:, :H]
+    np.testing.assert_array_equal(bits, lines)
+    assert not got[lines.shape[0]:].any()

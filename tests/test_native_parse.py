@@ -11,8 +11,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from xsqueezeit_tpu.io.bcf import BcfWriter, patch_shared_sample_counts
-from xsqueezeit_tpu.io.sites import encode_gt_indiv
+from tests.fixtures import vcf_to_bcf
 from xsqueezeit_tpu.io.unified import GtInput
 
 REF_BCF = "/root/reference/test/test_files/test_region_target.bcf"
@@ -39,18 +38,6 @@ def _assert_same(path):
         np.testing.assert_array_equal(a[1], b[1],
                                       err_msg=f"gt differs at record {i}")
         assert a[2:] == b[2:], f"n_alleles/ploidy differ at record {i}"
-
-
-def vcf_to_bcf(vcf_path: str, bcf_path: str) -> None:
-    inp = GtInput(vcf_path)
-    w = BcfWriter(bcf_path, inp.header)
-    n = len(inp.samples)
-    for rec in inp:
-        shared = patch_shared_sample_counts(rec.shared, 1, n)
-        w.write_raw(shared, encode_gt_indiv(inp.header, rec.gt,
-                                            rec.ploidy, n))
-    w.close()
-    inp.close()
 
 
 def test_native_parse_synth_block(tmp_path):

@@ -53,6 +53,8 @@ class Accessor:
         self.n_haps = (self.n_samples * 2 if self.xsi.header.ploidy != 1
                        else self.n_samples * 2)
         self._decoders: dict[int, GtBlockDecoder] = {}
+        self._device: bool | None = None     # device codec on (lazy)
+        self._dev_block: tuple | None = None  # (block id, decoded block)
 
     # -------------------------------------------------------------- naming
     def variant_filename(self) -> str:
@@ -92,8 +94,35 @@ class Accessor:
                 return int(np.asarray(vals)[0])
         raise ValueError("record has no FORMAT/BM")
 
+    def _device_block(self, block_id: int):
+        """The block decoded whole on the device (codec.decoder_jax), or
+        None where the host decoder answers: the device codec is off
+        (compressor.use_device_codec), or the block has exception tracks
+        or mixed ploidy, whose overlays replay sequentially on the host."""
+        if self._device is None:
+            from .codec.compressor import use_device_codec
+            self._device = use_device_codec()
+        if not self._device:
+            return None
+        if self._dev_block is None or self._dev_block[0] != block_id:
+            from .codec import BLOCK_COUNTS
+            from .codec.decoder_jax import DeviceBlockDecoder
+            dev = DeviceBlockDecoder(self.xsi.gt_block_payload(block_id),
+                                     self.n_samples, self.n_haps,
+                                     self.xsi.aet_dtype)
+            if dev.eligible and not dev.meta.has_weirdness:
+                dev.decode_all()
+                BLOCK_COUNTS["decode_device"] += 1
+            else:
+                dev = None
+            self._dev_block = (block_id, dev)
+        return self._dev_block[1]
+
     def fill_genotype_array(self, bm: int, n_alleles: int) -> np.ndarray:
         block_id, offset = self.split_bm(bm)
+        dev = self._device_block(block_id)
+        if dev is not None:
+            return dev.record_gt(offset, n_alleles)
         dec = self._decoder(block_id)
         dec.seek(offset)
         return dec.fill_genotype_array_advance(n_alleles)

@@ -32,7 +32,7 @@ def main(argv: list[str] | None = None) -> int:
     s.add_argument("file")
     s.add_argument("--seed", type=int, default=42)
     s.add_argument("--device", action="store_true",
-                   help="block-batched MXU path (XSI input only)")
+                   help="block-batched device matmul path (XSI input only)")
     s = sub.add_parser("af_stats")
     s.add_argument("file")
     s.add_argument("--summary", action="store_true",
@@ -86,9 +86,8 @@ def main(argv: list[str] | None = None) -> int:
     s.add_argument("--dir", default=None)
 
     s = sub.add_parser("warmup", help="pre-compile device executables for "
-                                      "a geometry (HRC-width chain kernels "
-                                      "cost ~35 min one-time Mosaic compile; "
-                                      "the jit cache persists them)")
+                                      "a geometry (the compile cache "
+                                      "persists them)")
     s.add_argument("--samples", type=int, required=True)
     s.add_argument("--block-length", type=int, default=8192)
     s.add_argument("--maf-threshold", type=int, default=None)

@@ -131,13 +131,14 @@ def dot_prod(path: str, seed: int = 42) -> dict:
 
 
 def dot_prod_device(path: str, seed: int = 42) -> dict:
-    """GWAS dot product on TPU: whole blocks decode on device and the
-    per-variant dosage dot products run as ONE [lines, haps] x [haps]
-    matmul per block on the MXU -- the TPU-native formulation of the
-    reference's compressive dot product (dot_prod/dot_prod.hpp walks WAH
-    words on the CPU; on TPU the decode+matmul pipeline is faster than
-    any compressed-domain scalar walk).  Checksum-compatible with
-    dot_prod()."""
+    """GWAS dot product on the device: whole blocks decode on device and
+    the per-variant dosage dot products run as ONE [lines, haps] x [haps]
+    matmul per block -- the batched formulation of the reference's
+    compressive dot product (dot_prod/dot_prod.hpp walks WAH words on the
+    CPU).  Checksum-compatible with dot_prod() to float32 rounding: the
+    matmul runs at HIGHEST precision (a GPU would otherwise take TF32,
+    about three decimal digits) and sums in float32, in another order
+    than the host's float64 walk."""
     import time as _time
 
     import jax
@@ -168,7 +169,8 @@ def dot_prod_device(path: str, seed: int = 42) -> dict:
 
     checksum = 0.0
     n = 0
-    dot = jax.jit(lambda v, y2: (v.astype(jnp.float32) @ y2))
+    dot = jax.jit(lambda v, y2: jnp.matmul(
+        v.astype(jnp.float32), y2, precision=jax.lax.Precision.HIGHEST))
     for blk in order:
         n_alleles = blocks[blk]
         payload = acc.xsi.gt_block_payload(blk)
@@ -558,7 +560,7 @@ def scaling_curve(n_records: int = 20000, n_samples: int = 500,
         # pass on a thread overlapped with its encode (both release the
         # GIL), so its span is max(varpass, encode0).  Gather is
         # communication — keep its measured wall (localhost gloo under
-        # N-on-1-core contention, so a pessimistic bound; real DCN cost
+        # N-on-1-core contention, so a pessimistic bound; real network cost
         # for these byte counts is milliseconds) and report efficiency
         # both with and without it.
         scan_max = max(p["scan_cpu_s"] for p in perfs)
@@ -690,10 +692,9 @@ def warmup(n_samples: int, block_length: int = 8192,
            fracs: tuple = (1.0, 0.7, 0.45, 0.2)) -> dict:
     """Pre-compile the device executables for a production geometry.
 
-    At HRC width (64976 haplotypes) the Pallas chain kernels cost ~35 min
-    of one-time Mosaic compile per (Lw, H) shape; executables persist in
-    the jit cache (utils/jaxcache), so running this once ahead of time
-    makes the first real compress/extract start instantly.  Each `frac`
+    Each (Lw, H) shape compiles once per cache (utils/jaxcache), so
+    running this ahead of time moves those compiles out of the first
+    real compress/extract.  Each `frac`
     builds one synthetic block whose WAH-line count lands in a distinct
     WAH-row bucket (encoder_base.prepare: quarter buckets of L_pad when
     H > 16384), encodes it through the production DeviceBlockEncoder

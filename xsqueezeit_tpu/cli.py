@@ -26,7 +26,7 @@ from .format.constants import (
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="xsqueezeit",
-        description="xSqueezeIt - VCF/BCF Compressor (TPU-native rebuild)")
+        description="xSqueezeIt - VCF/BCF Compressor (JAX rebuild)")
     p.add_argument("-f", "--file", default="-", help="Input file name")
     p.add_argument("-o", "--output", default="-", help="Output file name")
     p.add_argument("-O", "--output-type", default="b", choices="buzvx",
@@ -75,21 +75,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Total number of processes of the distributed run")
     p.add_argument("--dist-procid", type=int, default=None,
                    help="This process's id (0-based) in the distributed run")
+    p.add_argument("--dist-devices", default=None, metavar="IDS",
+                   help="Comma list of the local accelerator ids this "
+                        "process uses (one process per card on a shared "
+                        "host); default: every local device")
     return p
 
 
 def main(argv: list[str] | None = None) -> int:
     from .utils.malltune import tune_glibc_malloc
     tune_glibc_malloc()
-
-    # XSI_JAX_PLATFORM=cpu pins the jax backend before any device use
-    # (some launchers clobber JAX_PLATFORMS; jax.config is authoritative).
-    # Operationally useful for CPU-only multi-process runs and accelerator
-    # outages — the codec paths are backend-agnostic.
-    platform = os.environ.get("XSI_JAX_PLATFORM")
-    if platform:
-        import jax
-        jax.config.update("jax_platforms", platform)
 
     args = build_parser().parse_args(argv)
 
@@ -141,6 +136,12 @@ def main(argv: list[str] | None = None) -> int:
         return 1
 
 
+def _device_ids(text: str | None) -> list[int] | None:
+    if not text:
+        return None
+    return [int(x) for x in text.split(",") if x]
+
+
 def _dispatch(args) -> int:
     import sys
 
@@ -176,7 +177,8 @@ def _dispatch(args) -> int:
                 args.file, args.output, opts,
                 coordinator=args.distributed,
                 num_processes=args.dist_nproc,
-                process_id=args.dist_procid)
+                process_id=args.dist_procid,
+                local_device_ids=_device_ids(args.dist_devices))
             if stats is None:      # non-zero process: encode + gather only
                 return 0
         else:
@@ -222,7 +224,8 @@ def _dispatch(args) -> int:
                 args.file, out, opts,
                 coordinator=args.distributed,
                 num_processes=args.dist_nproc,
-                process_id=args.dist_procid)
+                process_id=args.dist_procid,
+                local_device_ids=_device_ids(args.dist_devices))
             return 0
         Decompressor(args.file, opts).decompress(out)
         return 0

@@ -166,8 +166,7 @@ class BlockEncoderBase:
         The per-record ingest (allele-code conversion + exception/ALT/
         phase stats) runs as a handful of whole-matrix numpy passes
         instead of ~6 numpy dispatches per record — the host-side cost
-        that dominated exception-heavy blocks on the device path
-        (round-4 verdict: 359 ms/block ingest vs 14 ms device encode).
+        that dominated exception-heavy blocks on the device path.
         Appended state is identical to n encode_record calls (payload
         bytes pinned by tests)."""
         offs = np.asarray(offs, np.int64)
@@ -341,11 +340,12 @@ class BlockEncoderBase:
         if not pad:
             Lw_pad = max(n_wah, 1)
         elif H > 16384:
-            # HRC-and-beyond widths: the Pallas chain executable costs
-            # ~35 min of one-time Mosaic compile PER (Lw, H) shape (memory:
-            # measured at 64976 haps), so the WAH-row axis gets quarter
-            # buckets of L_pad (<= 4 variants per block size) instead of
-            # the fine power-of-two ladder.
+            # HRC-and-beyond widths: each (Lw, H) shape is one more cold
+            # compile of the block program (18.5 s for the encode at 64,976
+            # haplotypes on an H100 SXM, 700 W limit, chip_smoke.py), so
+            # the WAH-row axis gets quarter buckets of L_pad (<= 4 variants
+            # per block size, and less padding than the next power of two)
+            # instead of the fine power-of-two ladder.
             q = max(L_pad // 4, 256)
             Lw_pad = min(-(-max(n_wah, 1) // q) * q, L_pad)
         else:

@@ -1,4 +1,4 @@
-"""Device (JAX) block encoder — the TPU fast path.
+"""Device (JAX) block encoder — the accelerator fast path.
 
 Encodes a whole block of diploid records in one fused device pipeline:
 
@@ -43,10 +43,9 @@ def sparse_idx_packed_reduction(mask, cap, count=None):
 
     Rank-select by masked reduction: rank k's position is the sole j with
     cumsum(mask)[j] == k+1 and mask[j], recovered as a dense
-    compare+select+sum over the row — no gathers (TPU gathers run ~1
-    element/cycle; the binary-search formulation's 13 take_along_axis
-    steps measured 129 ms/call at [8192, 5008] cap 128 on a v5e, vs
-    ~6 ms for this).  Two ranks resolve per pass: positions < H <= 65535
+    compare+select+sum over the row — no gathers (the binary-search
+    formulation, sparse_idx_by_search, needs 13 dependent
+    take_along_axis steps at H = 5008).  Two ranks resolve per pass: positions < H <= 65535
     fit 16 bits, so rank k packs into the low and rank k+ceil(cap/2)
     into the high half of one i32 accumulator (at most one j matches
     each rank per row, so the sum IS the position — no carries).
@@ -149,10 +148,6 @@ def encode_block_core(alleles, alts, mac_threshold, sparse_cap):
         a0 = jnp.arange(H, dtype=jnp.int32)
         ys, _ = pbwt_jax.pbwt_encode_scan(alleles, alts, is_wah, a0)
     words = wah_jax.pack_bits(ys)
-    # NOTE: ops.wah_pallas.wah_compress_pallas is 3x faster standalone, but
-    # in this pipeline the pallas_call fusion barrier costs more than the
-    # sort it saves (measured +1.1 ms on the chr20-like block) -- the XLA
-    # formulation fuses with pack_bits and the sparse scans.
     wah_words, wah_len = wah_jax.wah_compress_words(words)
 
     mask = alleles.astype(jnp.int32) == sparse_allele[:, None]
@@ -353,9 +348,9 @@ def _encode_block_device_compact_tracks(alleles, alts, is_wah, negated,
     """The compact block core PLUS the missing/EOV exception-track encode
     in ONE dispatch: track bits derive on device from the SAME alleles
     matrix (`alleles[row] == MISSING/EOV`), so flagged-record blocks pay
-    no second host->device transfer and no host bit-matrix assembly (the
-    round-3 verdict's 0.02 GB/s regime shipped ~40 MB of bool rows per
-    block on top of the block matrix).
+    no second host->device transfer and no host bit-matrix assembly (a
+    separate track dispatch would ship ~40 MB of bool rows per block on
+    top of the block matrix).
 
     trk_rows: int32[R] block-line index of each flagged record's FIRST
     binary line (every line of a record replicates the record's natural

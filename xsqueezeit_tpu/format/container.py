@@ -23,11 +23,43 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
-import zstandard
 
 from .constants import BlockDict
 from .dictionary import read_dictionary, write_dictionary
 from .header import XsiHeader
+
+
+class ZstdLayer:
+    """Frame codec of the --zstd block layer: the `zstandard` module when
+    it is installed, else the native library's libzstd binding.  Raises
+    ValueError (a one-line CLI error) when neither is available."""
+
+    def __init__(self, level: int = 7):
+        self.level = level
+        try:
+            import zstandard
+        except ImportError:
+            try:
+                from ..interop.native import NativeZstd
+                self._native = NativeZstd()
+            except Exception as exc:
+                raise ValueError(
+                    "--zstd needs the zstandard module or a native library "
+                    f"built with zstd ({exc})") from None
+        else:
+            self._native = None
+            self._cctx = zstandard.ZstdCompressor(level=level)
+            self._dctx = zstandard.ZstdDecompressor()
+
+    def compress(self, blob: bytes) -> bytes:
+        if self._native is not None:
+            return self._native.compress(blob, self.level)
+        return self._cctx.compress(blob)
+
+    def decompress(self, frame, size: int) -> bytes:
+        if self._native is not None:
+            return self._native.decompress(frame, size)
+        return self._dctx.decompress(frame, max_output_size=size)
 
 
 def wrap_top_level_block(gt_payload: bytes) -> bytes:
@@ -48,7 +80,7 @@ class XsiWriter:
         self.header.zstd = zstd_on
         self.sample_list = sample_list
         self.zstd_on = zstd_on
-        self._cctx = zstandard.ZstdCompressor(level=zstd_level) if zstd_on else None
+        self._zstd = ZstdLayer(zstd_level) if zstd_on else None
         self.f = open(path, "wb")
         self.f.write(header.pack())
         self.header.wahs_offset = self.f.tell()
@@ -58,7 +90,7 @@ class XsiWriter:
         blob = wrap_top_level_block(gt_payload)
         self.indices.append(self.f.tell())
         if self.zstd_on:
-            comp = self._cctx.compress(blob)
+            comp = self._zstd.compress(blob)
             self.f.write(len(comp).to_bytes(8, "little"))
             self.f.write(len(blob).to_bytes(8, "little"))
             self.f.write(comp)
@@ -127,7 +159,7 @@ class XsiReader:
         names = raw.split(b"\0")
         n_samples = (h.hap_samples // h.ploidy) if h.ploidy else 0
         self.samples = [n.decode() for n in names[:n_samples]]
-        self._dctx = zstandard.ZstdDecompressor() if h.zstd else None
+        self._zstd = ZstdLayer() if h.zstd else None
         self._block_cache: tuple[int, bytes] | None = None
 
     @property
@@ -154,9 +186,9 @@ class XsiReader:
             szb = 8 if self.header.version >= 5 else 4
             comp_size = int.from_bytes(self.data[off:off + szb], "little")
             orig_size = int.from_bytes(self.data[off + szb:off + 2 * szb], "little")
-            blob = self._dctx.decompress(
+            blob = self._zstd.decompress(
                 self.data[off + 2 * szb:off + 2 * szb + comp_size],
-                max_output_size=orig_size)
+                orig_size)
         else:
             nxt = (int(self.indices[block_id + 1])
                    if block_id + 1 < len(self.indices) else self.header.indices_offset)

@@ -491,6 +491,49 @@ class NativeBlockEncoder:
             pass
 
 
+class NativeZstd:
+    """The native library's zstd frame codec (xsi_zstd_*), the --zstd
+    block layer where the `zstandard` module is not installed.  Raises
+    OSError when the library was built without zstd."""
+
+    def __init__(self):
+        lib = ctypes.CDLL(build_native())
+        lib.xsi_have_zstd.restype = ctypes.c_int
+        if not lib.xsi_have_zstd():
+            raise OSError("the native library was built without zstd "
+                          "(zstd.h not found)")
+        lib.xsi_zstd_bound.restype = ctypes.c_size_t
+        lib.xsi_zstd_bound.argtypes = [ctypes.c_size_t]
+        for name, extra in (("xsi_zstd_compress", [ctypes.c_int]),
+                            ("xsi_zstd_decompress", [])):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int64
+            fn.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+                           ctypes.c_size_t] + extra
+        lib.xsi_last_error.restype = ctypes.c_char_p
+        self._lib = lib
+
+    def _check(self, n: int) -> int:
+        if n < 0:
+            raise ValueError(self._lib.xsi_last_error().decode())
+        return n
+
+    def compress(self, data: bytes, level: int) -> bytes:
+        data = bytes(data)
+        out = ctypes.create_string_buffer(
+            self._lib.xsi_zstd_bound(len(data)))
+        n = self._check(self._lib.xsi_zstd_compress(
+            data, len(data), out, len(out), level))
+        return out.raw[:n]
+
+    def decompress(self, data: bytes, size: int) -> bytes:
+        data = bytes(data)
+        out = ctypes.create_string_buffer(size)
+        n = self._check(self._lib.xsi_zstd_decompress(
+            data, len(data), out, size))
+        return out.raw[:n]
+
+
 _offsets_state: dict = {}
 
 

@@ -1,4 +1,4 @@
-"""PBWT arrangement transforms — JAX device kernels.
+"""PBWT arrangement transforms — JAX device kernels (plain XLA).
 
 The PBWT stable partition is sequential along the variant axis but fully
 vectorizable along the haplotype axis.  Three formulations coexist:
@@ -8,10 +8,8 @@ vectorizable along the haplotype axis.  Three formulations coexist:
   * pbwt_{encode,decode}_chunked: the production path.  Lines group into
     16-line chunks; a per-haplotype 16-bit register carries the chunk's
     bits through the partitions, so per line the only data movement is one
-    packed row sort — and on TPU backends the whole chunk chain runs as a
-    VMEM-resident Pallas staged-shift kernel instead (ops/pbwt_pallas.py).
-    Cross-chunk state comes from a radix rank chain (encode) or a
-    permutation-composition associative scan (decode).
+    packed row sort.  Cross-chunk state comes from a radix rank chain
+    (encode) or a permutation-composition associative scan (decode).
   * pbwt_encode_keys: cumsum-built packed sort keys (legacy path, still
     used for H > 65535 where the 16-bit register fields don't fit).
 
@@ -57,7 +55,7 @@ def pbwt_encode_scan(alleles: jnp.ndarray, alts: jnp.ndarray,
 
     Returns (y uint8[L, H] bits in arrangement order, a_final int32[H]).
 
-    TPU formulation: the PBWT arrangement after sorting lines b1..bk is the
+    Formulation: the PBWT arrangement after sorting lines b1..bk is the
     stable lexicographic order of (bk, ..., b1, prior rank) -- a sort by the
     haplotypes' bit-history.  Lines are grouped into chunks of C = 31 -
     ceil(log2 H) lines so that (chunk-local history prefix, chunk-start
@@ -164,9 +162,7 @@ def _sort_apply(key: jnp.ndarray, val: jnp.ndarray, h: int,
     """Batched permutation apply: out[..., key[i]] = val[..., i].
 
     key rows are permutations of 0..h-1.  Uses a single packed-u32 sort when
-    the fields fit (the fast path on TPU -- a row sort moves data an order of
-    magnitude faster than an elementwise scatter/gather); falls back to a
-    tuple sort for very large h.
+    the fields fit; falls back to a tuple sort for very large h.
     """
     b = _hap_bits(h)
     vb = val_bits if val_bits is not None else b
@@ -186,30 +182,6 @@ def _sort_apply(key: jnp.ndarray, val: jnp.ndarray, h: int,
 DECODE_CHUNK = 16
 
 
-@functools.cache
-def _use_pallas() -> bool:
-    """Pallas staged-shift partition kernels run on real TPU backends only;
-    the CPU test backend keeps the pure-XLA sort formulation.  Overrides:
-    XSI_PALLAS=0 forces the sort path everywhere; XSI_PALLAS=interpret
-    runs the kernels in Pallas interpreter mode on any backend (tests)."""
-    import os
-    v = os.environ.get("XSI_PALLAS", "").lower()
-    if v in ("0", "off", "no"):
-        return False
-    if v == "interpret":
-        return True
-    try:
-        return jax.devices()[0].platform != "cpu"
-    except Exception:
-        return False
-
-
-@functools.cache
-def _pallas_interpret() -> bool:
-    import os
-    return os.environ.get("XSI_PALLAS", "").lower() == "interpret"
-
-
 def _rank_chain(T: jnp.ndarray, r0: jnp.ndarray, b: int, s_jump: int = 4,
                 total_bits: int | None = None
                 ) -> tuple[jnp.ndarray, jnp.ndarray]:
@@ -227,8 +199,7 @@ def _rank_chain(T: jnp.ndarray, r0: jnp.ndarray, b: int, s_jump: int = 4,
     packs PAIRS of chunk totals per u32 operand and rides (rank, iota) in
     one more — the same radix order with half the compare traffic — and
     doubles the jump to S = 2 * s_jump: half the sequential steps at equal
-    per-step bytes.  Sort cost on TPU scales with key operand bytes
-    (memory: measured ~1-2 us/row at [*, 5008], scaling with packed width).
+    per-step bytes (sort cost scales with key operand bytes).
     """
     n_ch, H = T.shape
     S = s_jump
@@ -292,7 +263,7 @@ def pbwt_encode_chunked(alleles: jnp.ndarray, alts: jnp.ndarray,
     callers fall back to pbwt_encode_scan beyond that.  Block-start
     arrangement is identity (header iota_ppa).
 
-    TPU formulation: lines are grouped in chunks of `chunk` (<=16) lines.
+    Formulation: lines are grouped in chunks of `chunk` (<=16) lines.
     A per-haplotype 16-bit register β̂ holds the hap's bits for the chunk's
     lines (bit j = line j), loaded into chunk-start arrangement order by ONE
     batched packed sort per chunk (key = chunk-start rank from the radix
@@ -334,32 +305,24 @@ def pbwt_encode_chunked(alleles: jnp.ndarray, alts: jnp.ndarray,
     q0 = (jax.lax.sort((r_starts.astype(jnp.uint32) << 16) | bhat,
                        dimension=1, is_stable=False) & jnp.uint32(0xFFFF))
 
-    if _use_pallas():
-        from . import pbwt_pallas
-        hp = pbwt_pallas._ceil_to(H, pbwt_pallas.LANE)
-        q0p = jnp.pad(q0, ((0, 0), (0, hp - H)))
-        ysp = pbwt_pallas.chain_encode(q0p, ss.astype(jnp.int32), C, H,
-                                       interpret=_pallas_interpret())
-        ys = ysp[:, :, :H].reshape(Lp, H)[:L].astype(jnp.uint8)
-    else:
-        ssw = jnp.swapaxes(ss.astype(jnp.uint32), 0, 1)        # [C, n_ch]
+    ssw = jnp.swapaxes(ss.astype(jnp.uint32), 0, 1)            # [C, n_ch]
 
-        def step(q, inp):
-            j, s_j = inp
-            y = (q >> j) & jnp.uint32(1)
-            yi = y.astype(jnp.int32)
-            cums = jnp.cumsum(yi, axis=1)
-            ones_before = cums - yi
-            nz = H - cums[:, -1:]
-            d = jnp.where(yi == 0, iota[None, :] - ones_before,
-                          nz + ones_before)
-            d = jnp.where(s_j[:, None] != 0, d, iota[None, :])
-            q = jax.lax.sort((d.astype(jnp.uint32) << 16) | q,
-                             dimension=1, is_stable=False) & jnp.uint32(0xFFFF)
-            return q, y.astype(jnp.uint8)
+    def step(q, inp):
+        j, s_j = inp
+        y = (q >> j) & jnp.uint32(1)
+        yi = y.astype(jnp.int32)
+        cums = jnp.cumsum(yi, axis=1)
+        ones_before = cums - yi
+        nz = H - cums[:, -1:]
+        d = jnp.where(yi == 0, iota[None, :] - ones_before,
+                      nz + ones_before)
+        d = jnp.where(s_j[:, None] != 0, d, iota[None, :])
+        q = jax.lax.sort((d.astype(jnp.uint32) << 16) | q,
+                         dimension=1, is_stable=False) & jnp.uint32(0xFFFF)
+        return q, y.astype(jnp.uint8)
 
-        _, ys = jax.lax.scan(step, q0, (jshift, ssw))
-        ys = jnp.swapaxes(ys, 0, 1).reshape(Lp, H)[:L]
+    _, ys = jax.lax.scan(step, q0, (jshift, ssw))
+    ys = jnp.swapaxes(ys, 0, 1).reshape(Lp, H)[:L]
     _, a_final = jax.lax.sort((r_fin, iota), num_keys=1, is_stable=False)
     return ys, a_final
 
@@ -398,40 +361,27 @@ def pbwt_decode_chunked(ys: jnp.ndarray, sorts: jnp.ndarray,
     iota = jnp.arange(H, dtype=jnp.int32)
     jshift = jnp.arange(C, dtype=jnp.uint32)
 
-    if _use_pallas():
-        # Two-epoch (C=32) kernel chunks were measured neutral-to-slower
-        # than C=16 single-epoch on v5e (the mid-chunk composition sorts
-        # offset the halved scan), so the simple form stays.
-        from . import pbwt_pallas
-        hp = pbwt_pallas._ceil_to(H, pbwt_pallas.LANE)
-        ycp = jnp.pad(y.reshape(n_ch, C, H), ((0, 0), (0, 0), (0, hp - H)))
-        ssp = sorts.reshape(n_ch, C).astype(jnp.int32)
-        p_fin = pbwt_pallas.chain_decode(
-            ycp, ssp, C, H, interpret=_pallas_interpret())[:, -1, :H]
-    else:
-        # Stable-partition destinations for every line, one vectorized
-        # cumsum (identity on non-sorting lines).
-        c = jnp.cumsum(y, axis=1)
-        ones_before = c - y
-        n_zeros = H - c[:, -1:]
-        dest = jnp.where(y == 0, iota[None, :] - ones_before,
-                         n_zeros + ones_before)
-        dest = jnp.where(sorts[:, None], dest,
-                         iota[None, :]).astype(jnp.uint16)
+    # Stable-partition destinations for every line, one vectorized cumsum
+    # (identity on non-sorting lines).
+    c = jnp.cumsum(y, axis=1)
+    ones_before = c - y
+    n_zeros = H - c[:, -1:]
+    dest = jnp.where(y == 0, iota[None, :] - ones_before,
+                     n_zeros + ones_before)
+    dest = jnp.where(sorts[:, None], dest, iota[None, :]).astype(jnp.uint16)
 
-        dc = jnp.swapaxes(dest.reshape(n_ch, C, H), 0, 1)      # [C, n_ch, H]
-        yc = jnp.swapaxes(y.reshape(n_ch, C, H).astype(jnp.uint32), 0, 1)
+    dc = jnp.swapaxes(dest.reshape(n_ch, C, H), 0, 1)          # [C, n_ch, H]
+    yc = jnp.swapaxes(y.reshape(n_ch, C, H).astype(jnp.uint32), 0, 1)
 
-        p0 = jnp.broadcast_to(iota.astype(jnp.uint32) << 16, (n_ch, H))
+    p0 = jnp.broadcast_to(iota.astype(jnp.uint32) << 16, (n_ch, H))
 
-        def step(p, inp):
-            d, yrow, j = inp
-            p = p | (yrow << j)
-            _, p = jax.lax.sort((d, p), dimension=1, num_keys=1,
-                                is_stable=False)
-            return p, None
+    def step(p, inp):
+        d, yrow, j = inp
+        p = p | (yrow << j)
+        _, p = jax.lax.sort((d, p), dimension=1, num_keys=1, is_stable=False)
+        return p, None
 
-        p_fin, _ = jax.lax.scan(step, p0, (dc, yc, jshift))
+    p_fin, _ = jax.lax.scan(step, p0, (dc, yc, jshift))
 
     o_tot = (p_fin >> 16).astype(jnp.int32)
     beta = (p_fin & jnp.uint32(0xFFFF)).astype(jnp.int32)
@@ -460,8 +410,7 @@ def pbwt_decode_blocked(ys: jnp.ndarray, sorts: jnp.ndarray,
 
     Replaces the line-sequential `lax.scan` with a 3-phase hierarchy whose
     sequential depth is O(chunk + log(L/chunk)) instead of O(L), all data
-    movement expressed as batched packed-u32 row sorts (~2 us/row on v5e vs
-    ~15 ns/elem for elementwise gathers):
+    movement expressed as batched packed-u32 row sorts:
 
       1. per-chunk position-map chains O_j (pos@line -> pos@chunk-start),
          one batched sort per chunk line, chunks independent;
@@ -539,9 +488,7 @@ def pbwt_decode_scan(ys: jnp.ndarray, sorts: jnp.ndarray,
     sorts: bool[L]
     Returns (vals uint8[L, H] bits in natural haplotype order, a_final).
 
-    TPU formulation: arbitrary gathers/scatters cost ~8 ns/element on the
-    VPU, but `lax.sort` (bitonic network) moves the same data an order of
-    magnitude faster.  Both per-line steps are expressed as sorts:
+    Both per-line steps are expressed as sorts:
       * vals = sort(key=a, payload=y)        -- a is a permutation, so
         sorting by it inverts the arrangement and lands bits at their
         natural positions (unique keys: stability not required);

@@ -1,9 +1,9 @@
 """WAH2 codec — JAX/XLA device kernels (batched over block lines).
 
-TPU-shaped reformulation of the WAH2 run-length format: instead of the
+Data-parallel reformulation of the WAH2 run-length format: instead of the
 reference's word-at-a-time C++ loops, whole blocks of lines are processed as
 dense [L, W] arrays with cumulative-sum run detection and scatter/gather
-compaction, so XLA can tile the work onto the VPU.
+compaction, which XLA fuses into a few elementwise and scan kernels.
 
 Encode:  bits[L, H]  ->  (words[L, W], n_words[L])      (fixed-capacity rows)
 Decode:  stream words -> per-line word offsets (one cumsum over the stream)
@@ -93,8 +93,8 @@ def wah_compress_words(words: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
     out_val = jnp.where(is_fill, fill_word, words)
 
     n_out = jnp.sum(emit, axis=1).astype(jnp.int32)
-    # Front-pack emitted words in order via one packed row sort (scatter is
-    # ~10x slower on TPU): key = (!emit, word index), value in the low bits.
+    # Front-pack emitted words in order via one packed row sort:
+    # key = (!emit, word index), value in the low bits.
     packed = (jnp.where(emit, jnp.uint32(0), jnp.uint32(1) << 31)
               | (idx.astype(jnp.uint32) << 16)
               | out_val.astype(jnp.uint32))
@@ -139,7 +139,7 @@ def wah_expand_stream(stream: jnp.ndarray, n_lines: int, w: int) -> jnp.ndarray:
 
     Returns int32[n_lines, w] of 15-bit groups (counters resolved to fills).
 
-    TPU formulation: no per-line offsets, no windowed gathers -- one global
+    Formulation: no per-line offsets, no windowed gathers -- one global
     cumsum over word spans gives each word's output slot, one scatter plants
     `(pos_in_row+1) << 16 | word` at row starts, and a per-row cumulative max
     forward-fills counter coverage.  Everything else is elementwise.
@@ -171,7 +171,7 @@ def wah_decode_lines(stream: jnp.ndarray, offsets: jnp.ndarray,
     in bounds -- pad with >= w zero words), offsets: int32[L].
     Returns bits uint8[L, h].
 
-    TPU formulation: everything in the WAH stream is 15-bit aligned (counter
+    Formulation: everything in the WAH stream is 15-bit aligned (counter
     words cover whole 15-bit groups), so expansion runs in *word space*:
     for each of the w output 15-bit slots of a line, find the covering input
     word with an O(w) scatter + cumulative max (no per-bit work), emit

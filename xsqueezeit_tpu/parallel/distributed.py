@@ -6,7 +6,8 @@ first-class: variant blocks are independent (the PBWT arrangement re-seeds
 to identity at every block boundary), so
 
   * the input is partitioned into contiguous block ranges, one per worker
-    (a TPU host in a `jax.distributed` job, or a local emulated worker),
+    (a host or card in a `jax.distributed` job, or a local emulated
+    worker),
   * every worker encodes only its blocks (device codec on its local chips),
   * per-block compressed payloads gather to worker 0 IN ORIGINAL BLOCK
     ORDER, which assembles a container byte-identical to the single-host
@@ -60,15 +61,24 @@ from ..io.unified import (
 
 def init_distributed(coordinator: str | None = None,
                      num_processes: int | None = None,
-                     process_id: int | None = None) -> tuple[int, int]:
-    """Initialize jax.distributed for a multi-host run; returns
-    (process_index, process_count).  No-op single-process fallback."""
+                     process_id: int | None = None,
+                     local_device_ids: list[int] | None = None
+                     ) -> tuple[int, int]:
+    """Initialize jax.distributed for a multi-process run; returns
+    (process_index, process_count).  No-op single-process fallback.
+
+    local_device_ids names the local accelerators this process opens:
+    several processes on one GPU host each take their own card (a JAX
+    process reserves most of every card it opens, so two on one card
+    run out of memory).  None opens every local device (one process per
+    host)."""
     import jax
 
     if coordinator is not None:
         jax.distributed.initialize(coordinator_address=coordinator,
                                    num_processes=num_processes,
-                                   process_id=process_id)
+                                   process_id=process_id,
+                                   local_device_ids=local_device_ids)
     try:
         return jax.process_index(), jax.process_count()
     except Exception:
@@ -89,7 +99,8 @@ def process_layout(n_blocks: int, process_index: int | None = None,
 
 
 def gather_blocks_to_host0(payloads: list[bytes]) -> list[bytes] | None:
-    """Ordered gather of per-block payload bytes onto process 0 over DCN.
+    """Ordered gather of per-block payload bytes onto process 0 (NCCL or
+    gloo collectives over NVLink or the network).
 
     Returns the global payload list in original block order on process 0
     (block ranges are contiguous and ascending by process), None
@@ -466,7 +477,9 @@ def compress_file_multihost(input_path: str, output_path: str,
                             coordinator: str | None = None,
                             num_processes: int | None = None,
                             process_id: int | None = None,
-                            perf: dict | None = None) -> dict | None:
+                            perf: dict | None = None,
+                            local_device_ids: list[int] | None = None
+                            ) -> dict | None:
     """Real multi-process data-parallel compression (jax.distributed).
 
     Every process must see `input_path`; only process 0 writes output.
@@ -501,7 +514,8 @@ def compress_file_multihost(input_path: str, output_path: str,
 
     t0 = time.perf_counter()
     c0 = time.process_time()
-    pidx, pcount = init_distributed(coordinator, num_processes, process_id)
+    pidx, pcount = init_distributed(coordinator, num_processes, process_id,
+                                    local_device_ids)
     opts = opts or CompressorOptions()
     (inp, samples, n_samples, default_phased, sniffed_ploidy,
      aet_dtype, mac_threshold, ws) = _setup(input_path, opts)
@@ -816,7 +830,9 @@ def decompress_file_multihost(xsi_path: str, output_path: str,
                               opts=None,
                               coordinator: str | None = None,
                               num_processes: int | None = None,
-                              process_id: int | None = None) -> dict | None:
+                              process_id: int | None = None,
+                              local_device_ids: list[int] | None = None
+                              ) -> dict | None:
     """Multi-process decompression to BCF (beyond-reference scale-out).
 
     Blocks are independently decodable, so each process decodes its
@@ -835,7 +851,8 @@ def decompress_file_multihost(xsi_path: str, output_path: str,
     from ..codec.decompressor import Decompressor, DecompressorOptions
     from ..io.bgzf import BGZF_EOF
 
-    pidx, pcount = init_distributed(coordinator, num_processes, process_id)
+    pidx, pcount = init_distributed(coordinator, num_processes, process_id,
+                                    local_device_ids)
     opts = opts or DecompressorOptions()
     if opts.output_type not in ("b",):
         raise ValueError("multi-host decompression supports -O b output")

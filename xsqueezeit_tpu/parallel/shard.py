@@ -6,13 +6,14 @@ data parallelism over the block axis of a `jax.sharding.Mesh`:
 
   * each device runs the fused per-block encode (PBWT scan + WAH RLE +
     sparse compaction) on its shard of blocks,
-  * per-block compressed sizes are summed with a `psum` over ICI,
+  * per-block compressed sizes are summed with a `psum` (NCCL over NVLink
+    between the cards of one host),
   * outputs are gathered in original block order (the out_specs partition
     preserves the block axis ordering), so host 0 can write a container
     byte-identical to the single-chip result.
 
-Multi-host runs layer `jax.distributed` on top; the dry-run path exercises
-the same program on N virtual CPU devices.
+Multi-process runs layer `jax.distributed` on top; the dry-run path
+exercises the same program on N virtual CPU devices.
 """
 from __future__ import annotations
 
@@ -21,27 +22,11 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..ops import pbwt_jax, wah_jax
 from ..utils.jaxcache import ensure_compilation_cache
 
 ensure_compilation_cache()
-
-
-def _encode_one_block(alleles, alts, mac_threshold, sparse_cap):
-    """Single-block encode body (the fused core from codec.encoder_jax,
-    plus the compressed-size scalar used by the psum collective)."""
-    from ..codec.encoder_jax import encode_block_core
-
-    out = encode_block_core(alleles, alts, mac_threshold, sparse_cap)
-    is_wah, wah_len = out["is_wah"], out["wah_len"]
-    # sparse entries serialize in A_T units: 2 bytes while n_haps fits u16
-    aet_bytes = 2 if alleles.shape[1] <= 0xFFFF else 4
-    out["n_bytes"] = (jnp.sum(jnp.where(is_wah, wah_len, 0)) * 2
-                      + jnp.sum(jnp.where(is_wah, 0, out["sparse_len"] + 1))
-                      * aet_bytes)
-    return out
 
 
 def make_sharded_encoder(mesh: Mesh, axis: str = "blocks",
@@ -171,10 +156,13 @@ class MeshBlockEncoder:
             sorts_w[i, :lw] = p["sorts_w"]
             sparse_rows[i, :ls] = p["sparse_rows_p"]
             negated_s[i, :ls] = p["negated_s"]
-        out = self._fn(jnp.asarray(alleles), jnp.asarray(alts),
-                       jnp.asarray(is_wah), jnp.asarray(negated),
-                       jnp.asarray(wah_rows), jnp.asarray(sorts_w),
-                       jnp.asarray(sparse_rows), jnp.asarray(negated_s))
+        # each device receives only its own blocks: placing the batch
+        # whole on one device first would stage B x [L, H] there and
+        # reshard it inside the program
+        blocks = NamedSharding(self.mesh, P("blocks"))
+        out = self._fn(*jax.device_put(
+            (alleles, alts, is_wah, negated, wah_rows, sorts_w,
+             sparse_rows, negated_s), blocks))
         out = {k: np.asarray(v) for k, v in out.items() if k != "total_bytes"}
         payloads = []
         for i, (e, p) in enumerate(zip(encoders, preps)):
@@ -191,44 +179,6 @@ class MeshBlockEncoder:
             }
             payloads.append(e.assemble(block_out, p))
         return payloads
-
-
-def make_sharded_decoder(mesh: Mesh, axis: str = "blocks"):
-    """Build a pjit-ed multi-block decoder (WAH lines, compacted) over `mesh`.
-
-    fn: (streams uint16[B, N], sorts bool[B, Lw], h, w static)
-        -> vals uint8[B, Lw, H]
-    """
-
-    def one(stream, sorts, h, w):
-        if pbwt_jax._use_pallas():
-            from ..ops.wah_pallas import wah_expand_pallas
-            w15 = wah_expand_pallas(stream, sorts.shape[0], w,
-                                interpret=pbwt_jax._pallas_interpret())
-        else:
-            w15 = wah_jax.wah_expand_stream(stream, sorts.shape[0], w)
-        ys = wah_jax.unpack_bits(w15, h)
-        if h <= 65535:
-            vals, _ = pbwt_jax.pbwt_decode_chunked(ys, sorts)
-        else:
-            vals, _ = pbwt_jax.pbwt_decode_blocked(ys, sorts)
-        return vals
-
-    from jax import shard_map
-
-    def per_shard(streams, sorts, h, w):
-        return jax.vmap(lambda s, so: one(s, so, h, w))(streams, sorts)
-
-    def build(h: int, w: int):
-        sharded = shard_map(
-            functools.partial(per_shard, h=h, w=w), mesh=mesh,
-            in_specs=(P(axis, None), P(axis, None)),
-            out_specs=P(axis, None, None),
-            check_vma=False,
-        )
-        return jax.jit(sharded)
-
-    return build
 
 
 def make_sharded_block_decoder(mesh: Mesh, axis: str = "blocks"):
